@@ -3,11 +3,11 @@
 Drives a batch of unicycles toward a goal a unit ahead while holding a
 hard lateral corridor |y| <= 0.05 -- the whole pipeline (linearize,
 condense, constraint stacking, quantization, integer ALM) as one XLA
-program per solve (:class:`pint_tpu.mpc.DeviceConstrainedSQP`), then the
+program per solve (:class:`pint_jax.mpc.DeviceConstrainedSQP`), then the
 same solver behind the warm-started serving endpoint
-(:class:`pint_tpu.serving.ConstrainedRTIService`) in closed loop.
+(:class:`pint_jax.serving.ConstrainedRTIService`) in closed loop.
 
-Run: python examples/corridor.py   (CPU or TPU)
+Run: python examples/corridor.py   (CPU or GPU)
 """
 
 import os
@@ -19,9 +19,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax.numpy as jnp
 import numpy as np
 
-from pint_tpu.mpc import DeviceConstrainedSQP, DeviceSQP
-from pint_tpu.models.dynamics import unpack_controls
-from pint_tpu.serving import ConstrainedRTIService
+from pint_jax.mpc import DeviceConstrainedSQP, DeviceSQP
+from pint_jax.models.dynamics import unpack_controls
+from pint_jax.serving import ConstrainedRTIService
 
 BOUND = 0.05
 

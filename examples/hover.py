@@ -1,14 +1,14 @@
 """Planar-quadrotor hover recovery: the 6-state multi-input device tier.
 
 A batch of birotors starts displaced and tilted around hover; the
-on-device nonlinear SQP (:class:`pint_tpu.mpc.DeviceSQP`) re-plans
+on-device nonlinear SQP (:class:`pint_jax.mpc.DeviceSQP`) re-plans
 int8-packed rotor-thrust deltas as ONE XLA program per solve, and a
 hard vertical-velocity corridor |vy| <= 0.15 m/s is then enforced with
 the fully on-device constrained solver
-(:class:`pint_tpu.mpc.DeviceConstrainedSQP`) -- the biggest geometry in
+(:class:`pint_jax.mpc.DeviceConstrainedSQP`) -- the biggest geometry in
 the model zoo (n=6 states, m=2 coupled inputs).
 
-Run: python examples/hover.py   (CPU or TPU)
+Run: python examples/hover.py   (CPU or GPU)
 """
 
 import os
@@ -19,9 +19,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from pint_tpu.models.dynamics import unpack_controls
-from pint_tpu.models.quadrotor import PlanarQuadrotor
-from pint_tpu.mpc import DeviceConstrainedSQP, DeviceSQP
+from pint_jax.models.dynamics import unpack_controls
+from pint_jax.models.quadrotor import PlanarQuadrotor
+from pint_jax.mpc import DeviceConstrainedSQP, DeviceSQP
 
 VY_BOUND = 0.15
 

@@ -1,6 +1,6 @@
-"""pint-tpu quickstart: packed lanes, rollouts, MPC, sharding.
+"""pint-jax quickstart: packed lanes, rollouts, MPC, sharding.
 
-Run: python examples/quickstart.py  (CPU or TPU)
+Run: python examples/quickstart.py  (CPU or GPU)
 """
 
 import os
@@ -13,7 +13,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import pint_tpu as pt
+import pint_jax as pt
 
 
 def swar_basics():
@@ -27,7 +27,7 @@ def swar_basics():
     print("min-u    ", pt.min_unsigned(a, b).lanes().tolist())
     print("shift<<2 ", pt.shift_left(a, 2).lanes().tolist())
 
-    # the TPU-natural shape: tensors of packed words
+    # the accelerator-natural shape: tensors of packed words
     words = jnp.arange(1 << 16, dtype=jnp.uint32)
     x = pt.PackedArray.from_words(pt.PackedLayout(8, 8, 8, 8), words)
     y = pt.add_signed_saturate(x, x)
@@ -36,7 +36,7 @@ def swar_basics():
 
 def quantized_rollouts():
     print("\n== Quantized rollouts (8192 x H=50) ==")
-    from pint_tpu.models import DoubleIntegrator, pack_controls
+    from pint_jax.models import DoubleIntegrator, pack_controls
 
     model = DoubleIntegrator()
     rng = np.random.default_rng(0)
@@ -51,7 +51,7 @@ def quantized_rollouts():
 
 def fixed_point_mpc():
     print("\n== Fixed-point MPC ==")
-    from pint_tpu.mpc import (
+    from pint_jax.mpc import (
         FixedPointPGD,
         condense_double_integrator,
         quantize,
@@ -70,8 +70,8 @@ def sharded_mpc():
     if jax.device_count() < 2:
         print("(single device; skipping)")
         return
-    from pint_tpu.mpc import condense_double_integrator, quantize
-    from pint_tpu.parallel import ShardedPGD, make_mesh
+    from pint_jax.mpc import condense_double_integrator, quantize
+    from pint_jax.parallel import ShardedPGD, make_mesh
 
     tp = 2 if jax.device_count() % 2 == 0 else 1
     mesh = make_mesh(tp=tp)

@@ -3,17 +3,17 @@
 The full nonlinear-MPC pipeline on int8 packed plans:
 
 1. **Plan** (offline): a long-horizon quantized SQP
-   (:class:`pint_tpu.mpc.QuantizedSQP`) pumps the torque-limited pendulum
+   (:class:`pint_jax.mpc.QuantizedSQP`) pumps the torque-limited pendulum
    from hanging to upright -- the torque ceiling is below peak gravity
    torque, so the solver must discover energy pumping.
 2. **Track** (online): a short-horizon quantized SQP inside
-   :class:`pint_tpu.mpc.SQPController` follows the planned state trajectory
+   :class:`pint_jax.mpc.SQPController` follows the planned state trajectory
    through the *fixed-point plant* with one real-time iteration per tick
    and balances at the top.  The tracking horizon is deliberately short:
    condensing an exponentially unstable plant conditions like
    e^(2*lambda*T).
 
-Run: python examples/swingup.py   (CPU or TPU)
+Run: python examples/swingup.py   (CPU or GPU)
 """
 
 import os
@@ -24,8 +24,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from pint_tpu.models import Pendulum
-from pint_tpu.mpc import QuantizedSQP, SQPController
+from pint_jax.models import Pendulum
+from pint_jax.mpc import QuantizedSQP, SQPController
 
 
 def main() -> None:

@@ -5,11 +5,11 @@ matrix pitting packed SWAR ops against naive per-field bitshift, bitfield
 unions, branchy/clamped saturates and SSE2/NEON intrinsics
 (/root/reference/tests/pint_bench.cpp:85-684).  This driver builds and runs
 the equivalent matrix for this repo's native C++ tier
-(pint_tpu/native/bench_host.cpp, which benches pint_tpu/native/swar.cpp
+(pint_jax/native/bench_host.cpp, which benches pint_jax/native/swar.cpp
 against re-implemented baseline semantics, cross-checked before timing) and
-writes BENCH_host.json.
+writes chiprun_out/bench_host.json.
 
-Usage:  python host_bench.py            # ~2 min, writes BENCH_host.json
+Usage:  python host_bench.py            # ~2 min
 """
 
 from __future__ import annotations
@@ -23,9 +23,9 @@ import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
-SRC = HERE / "pint_tpu" / "native" / "bench_host.cpp"
-SWAR = HERE / "pint_tpu" / "native" / "swar.cpp"
-OUT = HERE / "BENCH_host.json"
+SRC = HERE / "pint_jax" / "native" / "bench_host.cpp"
+SWAR = HERE / "pint_jax" / "native" / "swar.cpp"
+OUT = HERE / "chiprun_out" / "bench_host.json"
 
 
 def build() -> Path:
@@ -114,6 +114,7 @@ def main() -> None:
         "rows": rows,
         "summary": summary,
     }
+    OUT.parent.mkdir(exist_ok=True)
     OUT.write_text(json.dumps(doc, indent=1) + "\n")
     print(f"wrote {OUT} ({len(rows)} rows)")
     for s in summary:

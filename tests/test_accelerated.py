@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pint_tpu.mpc import FixedPointPGD, condense_double_integrator, quantize
-from pint_tpu.mpc.accelerated import AcceleratedPGD
-from pint_tpu.mpc.fused import FusedPGD
+from pint_jax.mpc import FixedPointPGD, condense_double_integrator, quantize
+from pint_jax.mpc.accelerated import AcceleratedPGD
+from pint_jax.mpc.fused import FusedPGD
 
 
 @pytest.fixture(scope="module")

@@ -8,8 +8,8 @@ solver (test_constrained_device.py)."""
 import numpy as np
 import pytest
 
-from pint_tpu.mpc.condensed import condense_double_integrator, condense_lti
-from pint_tpu.mpc.constrained import StateConstrainedQP, constrain_states
+from pint_jax.mpc.condensed import condense_double_integrator, condense_lti
+from pint_jax.mpc.constrained import StateConstrainedQP, constrain_states
 
 T, DT = 50, 1.0 / 32.0
 A_DI = np.array([[1.0, DT], [0.0, 1.0]])
@@ -153,7 +153,7 @@ def test_constrain_states_validation():
 import jax
 import jax.numpy as jnp
 
-from pint_tpu.mpc.constrained import ConstrainedPGD, quantize_constrained
+from pint_jax.mpc.constrained import ConstrainedPGD, quantize_constrained
 
 RHO = 50.0
 
@@ -193,7 +193,7 @@ def test_device_matches_float64_alm():
 def test_device_constraint_engages():
     """Constrained device plan respects the velocity limit the unconstrained
     device solver blows through."""
-    from pint_tpu.mpc import FixedPointPGD, quantize
+    from pint_jax.mpc import FixedPointPGD, quantize
 
     qp, sc, solver = _device_setup()
     x0 = np.array([[-1.0, 0.0]])
@@ -257,8 +257,8 @@ def test_constrained_closed_loop():
     """Receding-horizon loop with warm-started multipliers: the closed-loop
     trajectory respects the velocity limit the unconstrained controller
     blows through ~6x, and still regulates to the origin."""
-    from pint_tpu.models.dynamics import DoubleIntegrator
-    from pint_tpu.mpc import ConstrainedController, RecedingHorizonController
+    from pint_jax.models.dynamics import DoubleIntegrator
+    from pint_jax.mpc import ConstrainedController, RecedingHorizonController
 
     model = DoubleIntegrator()
     Th, dt = 32, model.dt

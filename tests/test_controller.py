@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pint_tpu.models import DoubleIntegrator
-from pint_tpu.mpc import condense_double_integrator, quantize
-from pint_tpu.mpc.controller import RecedingHorizonController
+from pint_jax.models import DoubleIntegrator
+from pint_jax.mpc import condense_double_integrator, quantize
+from pint_jax.mpc.controller import RecedingHorizonController
 
 
 @pytest.fixture(scope="module")
@@ -40,7 +40,9 @@ def test_closed_loop_fused_solver_identical(controller):
     """use_fused ticks must produce the exact same closed-loop trajectory."""
     import dataclasses
 
-    fused_ctrl = dataclasses.replace(controller, use_fused=True)
+    fused_ctrl = dataclasses.replace(
+        controller, use_fused=True, interpret=True
+    )
     model = controller.model
     x0 = jnp.asarray(model.to_fixed(np.array([[2.5, -0.3]])))
     s1, l1 = controller.run(x0, ticks=40)

@@ -5,15 +5,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pint_tpu.models import Unicycle
-from pint_tpu.mpc.costs import (
+from pint_jax.models import Unicycle
+from pint_jax.mpc.costs import (
     combine,
     control_effort_cost,
     control_rate_cost,
     goal_cost,
     obstacle_cost,
 )
-from pint_tpu.mpc.mppi import QuantizedMPPI
+from pint_jax.mpc.mppi import QuantizedMPPI
 
 
 @pytest.fixture(scope="module")
@@ -51,7 +51,7 @@ def test_mppi_avoids_obstacle(setup):
         lambda k, s: mppi.plan(k, s, cost_fn, updates=25)
     )(jax.random.PRNGKey(0), state0)
 
-    from pint_tpu.models.dynamics import unpack_controls
+    from pint_jax.models.dynamics import unpack_controls
 
     lanes = unpack_controls(words)
     ctrl = lanes.reshape(1, mppi.horizon, 2)

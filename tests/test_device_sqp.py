@@ -4,8 +4,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pint_tpu.models import Pendulum
-from pint_tpu.mpc import DeviceSQP, QuantizedSQP
+from pint_jax.models import Pendulum
+from pint_jax.mpc import DeviceSQP, QuantizedSQP
 
 
 @pytest.fixture(scope="module")
@@ -88,7 +88,7 @@ def test_device_sqp_dp_sharded_bit_identical(pair):
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from pint_tpu.parallel import make_mesh
+    from pint_jax.parallel import make_mesh
 
     _, dev = pair
     rng = np.random.default_rng(3)
@@ -128,7 +128,7 @@ def test_device_sqp_dp_tp_sharded_bit_identical(pair, dp, tp):
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from pint_tpu.parallel import make_mesh
+    from pint_jax.parallel import make_mesh
 
     _, dev = pair
     rng = np.random.default_rng(5)
@@ -155,7 +155,7 @@ def test_device_sqp_dp_tp_sharded_bit_identical(pair, dp, tp):
 
 
 def test_device_sqp_sharded_rejects_bad_tp():
-    from pint_tpu.parallel import make_mesh
+    from pint_jax.parallel import make_mesh
 
     # unicycle horizon 36 -> n_dec = 72, not divisible by 4*tp = 32
     bad = DeviceSQP(horizon=36, sqp_iters=1, pgd_iters=1)
@@ -186,7 +186,7 @@ def test_propagate_paths_agree(model_n, pair):
                     d_old._condense_hg(x0, lanes)):
         a, b = np.asarray(a), np.asarray(b)
         assert np.abs(a - b).max() <= 1e-4 * (np.abs(b).max() + 1e-12)
-    from pint_tpu.models.dynamics import unpack_controls
+    from pint_jax.models.dynamics import unpack_controls
     w_new = d_new.solve_words(d_new.init_words(batch), x0)
     w_old = d_old.solve_words(d_old.init_words(batch), x0)
     l_new = np.asarray(unpack_controls(w_new), np.int64)
@@ -196,9 +196,10 @@ def test_propagate_paths_agree(model_n, pair):
     assert np.abs(l_new - l_old).max() <= 1
 
 
-def test_propagate_validated():
+@pytest.mark.parametrize("mode", ["magic", "auto", "unroll"])
+def test_propagate_validated(mode):
     with pytest.raises(ValueError, match="propagate"):
-        DeviceSQP(propagate="magic")
+        DeviceSQP(propagate=mode)
 
 
 def test_device_sqp_nan_input_isolated(pair):
@@ -214,100 +215,10 @@ def test_device_sqp_nan_input_isolated(pair):
     assert np.asarray(w_both).dtype == np.uint32  # finite packed words
 
 
-def test_propagate_unroll_agrees(pair):
-    """The unrolled static-injection propagate reproduces the scan's
-    stacks to f32 roundoff (same recursion, no injection tensor)."""
-    import jax
-    import jax.numpy as jnp
-
-    _, dev = pair
-    rng = np.random.default_rng(11)
-    B = 8
-    x0 = jnp.asarray(np.stack(
-        [rng.uniform(-0.2, 0.2, B), rng.uniform(-0.2, 0.2, B),
-         rng.uniform(0, 1, B)], axis=-1).astype(np.float32))
-    lanes = jnp.asarray(
-        rng.integers(-100, 100, (B, dev.n_dec), dtype=np.int32))
-    A_seq, B_lane, c_seq = jax.jit(dev._linearize_phase)(x0, lanes)
-    As, Bs, Cs = jax.jit(dev._propagate_scan)(A_seq, B_lane, c_seq)
-    Au, Bu, Cu = jax.jit(dev._propagate_unrolled)(A_seq, B_lane, c_seq)
-    np.testing.assert_allclose(np.asarray(Au), np.asarray(As), rtol=1e-6)
-    np.testing.assert_allclose(
-        np.asarray(Bu), np.asarray(Bs), rtol=1e-6, atol=1e-6)
-    np.testing.assert_allclose(
-        np.asarray(Cu), np.asarray(Cs), rtol=1e-6, atol=1e-6)
-
-
-def test_reduce_blocked_agrees(pair):
-    """The 2x2 block-triangular + symmetric-mirror reduce reproduces the
-    einsum path's condensed (Ht, g) to f32 roundoff, and the full solver
-    with propagate='unroll' + reduce='blocked' matches the default
-    configuration's final true cost."""
-    import jax
-    import jax.numpy as jnp
-
-    host, dev = pair
-    rng = np.random.default_rng(13)
-    B = 8
-    x0 = np.stack(
-        [rng.uniform(-0.2, 0.2, B), rng.uniform(-0.2, 0.2, B),
-         rng.uniform(0, 1, B)], axis=-1).astype(np.float32)
-    x0j = jnp.asarray(x0)
-    lanes = jnp.asarray(
-        rng.integers(-100, 100, (B, dev.n_dec), dtype=np.int32))
-    A_seq, B_lane, c_seq = jax.jit(dev._linearize_phase)(x0j, lanes)
-    Abar, Bbar, Cbar = jax.jit(dev._propagate_scan)(A_seq, B_lane, c_seq)
-    Ht_e, g_e = jax.jit(dev._reduce_phase)(Abar, Bbar, Cbar, x0j)
-    Ht_b, g_b = jax.jit(dev._reduce_blocked)(Abar, Bbar, Cbar, x0j)
-    scale = float(jnp.max(jnp.abs(Ht_e)))
-    assert float(jnp.max(jnp.abs(Ht_b - Ht_e))) / scale < 1e-5
-    np.testing.assert_allclose(
-        np.asarray(g_b), np.asarray(g_e), rtol=1e-5, atol=1e-4)
-    # the off-diagonal blocks are exact transposes by construction
-    # (the mirror copy); diagonal blocks remain f32-roundoff symmetric
-    h = (dev.horizon // 2) * dev.n_ctrl
-    np.testing.assert_array_equal(
-        np.asarray(Ht_b[:h, h:]),
-        np.asarray(jnp.swapaxes(Ht_b[h:, :h], 0, 1)))
-
-    import dataclasses
-
-    dev_v = dataclasses.replace(dev, propagate="unroll", reduce="blocked")
-    u0 = dev.init_words(B)
-    w_d = dev.solve_words(u0, x0)
-    w_v = dev_v.solve_words(u0, x0)
-    c_d = host.true_cost(x0.astype(np.float64), host.lanes(w_d))
-    c_v = host.true_cost(x0.astype(np.float64), host.lanes(w_v))
-    np.testing.assert_allclose(c_v, c_d, rtol=0.01, atol=1e-4)
-
-
-def test_reduce_btrans_agrees(pair):
-    """The explicit batch-leading GEMM reduce reproduces the einsum
-    path's condensed (Ht, g) to f32 roundoff."""
-    import jax
-    import jax.numpy as jnp
-
-    _, dev = pair
-    rng = np.random.default_rng(17)
-    B = 8
-    x0 = jnp.asarray(np.stack(
-        [rng.uniform(-0.2, 0.2, B), rng.uniform(-0.2, 0.2, B),
-         rng.uniform(0, 1, B)], axis=-1).astype(np.float32))
-    lanes = jnp.asarray(
-        rng.integers(-100, 100, (B, dev.n_dec), dtype=np.int32))
-    A_seq, B_lane, c_seq = jax.jit(dev._linearize_phase)(x0, lanes)
-    Abar, Bbar, Cbar = jax.jit(dev._propagate_scan)(A_seq, B_lane, c_seq)
-    Ht_e, g_e = jax.jit(dev._reduce_phase)(Abar, Bbar, Cbar, x0)
-    Ht_b, g_b = jax.jit(dev._reduce_btrans)(Abar, Bbar, Cbar, x0)
-    scale = float(jnp.max(jnp.abs(Ht_e)))
-    assert float(jnp.max(jnp.abs(Ht_b - Ht_e))) / scale < 1e-5
-    np.testing.assert_allclose(
-        np.asarray(g_b), np.asarray(g_e), rtol=1e-5, atol=1e-4)
-
-
-def test_bad_reduce_rejected():
+@pytest.mark.parametrize("form", ["bogus", "blocked", "btrans"])
+def test_bad_reduce_rejected(form):
     with pytest.raises(ValueError, match="reduce must be"):
-        DeviceSQP(horizon=8, reduce="bogus")
+        DeviceSQP(horizon=8, reduce=form)
 
 
 def test_reduce_sym_agrees(pair):
@@ -330,7 +241,7 @@ def test_reduce_sym_agrees(pair):
                     d_ein._condense_hg(x0, lanes)):
         a, b = np.asarray(a), np.asarray(b)
         assert np.abs(a - b).max() <= 1e-4 * (np.abs(b).max() + 1e-12)
-    from pint_tpu.models.dynamics import unpack_controls
+    from pint_jax.models.dynamics import unpack_controls
 
     w_s = d_sym.solve_words(d_sym.init_words(B), x0)
     w_e = d_ein.solve_words(d_ein.init_words(B), x0)
@@ -357,21 +268,47 @@ def test_reduce_sym_agrees(pair):
         DeviceSQP(**kw, reduce="sym", Q=np.diag([1.0, 1.0, -0.5]))._Q_sqrt
 
 
-def test_propagate_auto_resolution():
-    """'auto' resolves per the measured crossovers (EXP_PROP.json):
-    DeviceSQP flips to unroll at T>=24; the constrained solver (which
-    reads the stacks twice) flips at T>=40; explicit modes pass
-    through."""
-    from pint_tpu.mpc import DeviceConstrainedSQP
+@pytest.mark.parametrize("shape_a,shape_b,axis,spec", [
+    ((5, 3, 4), (5, 1, 4), 0, "kij,kij->ij"),
+    ((3, 7, 2), (1, 7, 2), 1, "ikj,ikj->ij"),
+    ((4, 6), (4, 6), 0, "ki,ki->i"),
+])
+def test_fold_dot_matches_einsum(shape_a, shape_b, axis, spec):
+    """The fold contraction is the einsum it replaces, to f32 roundoff,
+    and sums in index order (a left fold)."""
+    from pint_jax.mpc.device_sqp import _fold_dot, _fold_sum
 
-    assert DeviceSQP(horizon=16)._propagate_mode() == "scan"
-    assert DeviceSQP(horizon=32)._propagate_mode() == "unroll"
-    assert DeviceSQP(horizon=32, propagate="scan")._propagate_mode() == "scan"
+    rng = np.random.default_rng(len(shape_a) + axis)
+    a = rng.normal(size=shape_a).astype(np.float32)
+    b = rng.normal(size=shape_b).astype(np.float32)
+    got = np.asarray(_fold_dot(jnp.asarray(a), jnp.asarray(b), axis=axis))
+    want = np.einsum(spec, a, np.broadcast_to(b, a.shape).astype(np.float64))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    # left fold: ((x0 + x1) + x2) + ...  in f32
+    x = np.array([1.0, 2.0**-24, 2.0**-24, -1.0], np.float32)
+    assert float(_fold_sum(jnp.asarray(x))) == 0.0
 
-    mk = lambda T: DeviceConstrainedSQP(
-        DeviceSQP(horizon=T), F=[[0.0, 1.0, 0.0]])
-    assert mk(32)._propagate_mode() == "scan"
-    assert mk(50)._propagate_mode() == "unroll"
-    assert DeviceConstrainedSQP(
-        DeviceSQP(horizon=32, propagate="unroll"), F=[[0.0, 1.0, 0.0]]
-    )._propagate_mode() == "unroll"
+
+@pytest.mark.parametrize("reduce", ["sym", "einsum"])
+def test_condensation_batch_invariant(reduce):
+    """Each problem's quantized operands are the same bits whether it is
+    condensed alone, in a small batch or in a larger one: the
+    condensation's contractions are folds, not shape-tuned dots or
+    reductions (docs/DESIGN.md section 11, D4)."""
+    import jax
+
+    dev = DeviceSQP(horizon=16, sqp_iters=1, pgd_iters=4, reduce=reduce,
+                    Q=np.diag([1.0, 1.0, 0.005]), R=np.diag([0.005, 0.005]),
+                    qf_scale=60.0, x_ref=np.array([0.2, 0.1, 0.0]))
+    rng = np.random.default_rng(23)
+    B = 24
+    x0 = jnp.asarray(np.stack(
+        [rng.uniform(-0.2, 0.2, B), rng.uniform(-0.2, 0.2, B),
+         rng.uniform(0, 1, B)], axis=-1), jnp.float32)
+    lanes = jnp.asarray(rng.integers(-100, 100, (B, dev.n_dec)), jnp.int32)
+    cond = jax.jit(dev._condense_dev)
+    full = cond(x0, lanes)
+    for k in (1, 5):
+        for got, ref in zip(cond(x0[:k], lanes[:k]), full):
+            np.testing.assert_array_equal(np.asarray(got),
+                                          np.asarray(ref)[:k])

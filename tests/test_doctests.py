@@ -6,7 +6,7 @@ contract, machine-checked)."""
 import doctest
 import pathlib
 
-import pint_tpu  # noqa: F401  (imported for its side-effect-free surface)
+import pint_jax  # noqa: F401  (imported for its side-effect-free surface)
 
 DOCS = pathlib.Path(__file__).resolve().parents[1] / "docs"
 

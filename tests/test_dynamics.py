@@ -9,7 +9,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from pint_tpu.models import (
+from pint_jax.models import (
     CONTROL_LAYOUT,
     DoubleIntegrator,
     Unicycle,
@@ -35,7 +35,7 @@ def test_int4_control_plans():
     tolerance -- the use case is coarse warm-start plans at half the HBM
     footprint.
     """
-    from pint_tpu import PackedLayout
+    from pint_jax import PackedLayout
 
     int4 = PackedLayout(*([4] * 8))
     model = DoubleIntegrator()
@@ -51,7 +51,7 @@ def test_int4_control_plans():
     np.testing.assert_array_equal(np.asarray(back), lanes4)
 
     # saturating int4 arithmetic works on the packed plan
-    from pint_tpu.ops import word as W
+    from pint_jax.ops import word as W
 
     doubled = W.add_signed_saturate(int4, words4, words4)
     lanes_doubled = np.asarray(unpack_controls(doubled, int4))

@@ -1,6 +1,6 @@
 """Layout-construction tests.
 
-TPU-native equivalent of the reference's compile-time checks: the word-dtype
+JAX equivalent of the reference's compile-time checks: the word-dtype
 boundary table (pint_test.cpp:58-87 static_asserts), mask derivation, and the
 saturation-strategy selection (pint.hpp:443-456).
 """
@@ -8,7 +8,7 @@ saturation-strategy selection (pint.hpp:443-456).
 import numpy as np
 import pytest
 
-from pint_tpu import PackedLayout, word_bits_for
+from pint_jax import PackedLayout, word_bits_for
 
 
 # word-size boundaries, matching pint_test.cpp:58-87

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from pint_tpu.models.dynamics import Unicycle
-from pint_tpu.mpc import QuantizedSQP, condense_lti, condense_ltv
+from pint_jax.models.dynamics import Unicycle
+from pint_jax.mpc import QuantizedSQP, condense_lti, condense_ltv
 
 
 def test_condense_ltv_matches_lti():
@@ -161,7 +161,7 @@ def test_sqp_batch_determinism(sqp, sqp_x0, sqp_solution):
 def test_sqp_controller_unicycle_closed_loop(sqp):
     """Receding-horizon RTI on the unicycle: one warm-started SQP
     iteration per tick reaches the goal through the quantized plant."""
-    from pint_tpu.mpc import SQPController
+    from pint_jax.mpc import SQPController
 
     ctl = SQPController(sqp, iters_per_tick=1)
     x0 = np.array([[0.0, 0.0, 0.0], [-0.1, 0.05, 0.1]])
@@ -174,7 +174,7 @@ def test_sqp_controller_unicycle_closed_loop(sqp):
 
 def test_condense_ltv_batch_matches_scalar():
     """The batched condensation reproduces per-problem condense_ltv."""
-    from pint_tpu.mpc.condensed import condense_ltv_batch
+    from pint_jax.mpc.condensed import condense_ltv_batch
 
     rng = np.random.default_rng(5)
     B, T, n, m = 4, 10, 3, 2
@@ -200,8 +200,8 @@ def test_dare_terminal_fixed_point_and_short_horizon():
     """dare_terminal solves the DARE (fixed-point residual ~0) and, used as
     the terminal weight, lets a T=8 regulator match what the qf heuristic
     needs T=32 for (the short-horizon enabler for unstable plants)."""
-    from pint_tpu.models import Pendulum
-    from pint_tpu.mpc import SQPController, dare_terminal
+    from pint_jax.models import Pendulum
+    from pint_jax.mpc import SQPController, dare_terminal
 
     m = Pendulum(u_shift=10)
     A, B = m.linearize(np.zeros(2), np.zeros(1))

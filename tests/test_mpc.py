@@ -9,7 +9,7 @@ import jax
 import numpy as np
 import pytest
 
-from pint_tpu.mpc import FixedPointPGD, condense_double_integrator, quantize
+from pint_jax.mpc import FixedPointPGD, condense_double_integrator, quantize
 
 
 @pytest.fixture(scope="module")
@@ -120,7 +120,7 @@ def test_solver_jits_once_and_batches(qqp):
 
 def test_condense_lti_multi_input():
     """2-D double integrator with 2 accel inputs (n=4, m=2)."""
-    from pint_tpu.mpc import condense_lti
+    from pint_jax.mpc import condense_lti
 
     dt = 1 / 32
     A = np.block(

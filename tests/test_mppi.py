@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pint_tpu.models import Unicycle
-from pint_tpu.mpc.mppi import QuantizedMPPI, unicycle_goal_cost
+from pint_jax.models import Unicycle
+from pint_jax.mpc.mppi import QuantizedMPPI, unicycle_goal_cost
 
 
 @pytest.fixture(scope="module")
@@ -28,7 +28,7 @@ def test_mppi_reaches_goal(setup):
     )(key, state0)
 
     # roll out the final nominal plan and check terminal distance
-    from pint_tpu.models.dynamics import unpack_controls
+    from pint_jax.models.dynamics import unpack_controls
 
     lanes = unpack_controls(words)
     ctrl = lanes.reshape(2, mppi.horizon, 2)
@@ -80,7 +80,7 @@ def test_mppi_controls_stay_in_box(setup):
     cost_fn = unicycle_goal_cost(model, goal[:, None, :])
     state0 = jnp.zeros((1, 3), jnp.int32)
     words, _ = mppi.plan(jax.random.PRNGKey(2), state0, cost_fn, updates=5)
-    from pint_tpu.models.dynamics import unpack_controls
+    from pint_jax.models.dynamics import unpack_controls
 
     lanes = np.asarray(unpack_controls(words))
     assert lanes.max() <= 127 and lanes.min() >= -128

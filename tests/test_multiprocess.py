@@ -3,8 +3,7 @@
 Validates the real multi-host wiring that the virtual-mesh tests cannot:
 process coordination, global device enumeration, cross-process
 collectives, the sharded solvers running on a mesh that spans processes
-(including the round-4 lipq + per-iteration-matvec kernels with real
-cross-process psums), and per-process sharded checkpointing.
+(with real cross-process psums), and per-process sharded checkpointing.
 """
 
 import pathlib
@@ -33,9 +32,9 @@ WORKER = textwrap.dedent(
 
     import numpy as np
     import jax.numpy as jnp
-    from pint_tpu.mpc import condense_double_integrator, quantize
-    from pint_tpu.parallel import ShardedPGD, make_mesh
-    from pint_tpu.parallel.distributed import aggregate_rate
+    from pint_jax.mpc import condense_double_integrator, quantize
+    from pint_jax.parallel import ShardedPGD, make_mesh
+    from pint_jax.parallel.distributed import aggregate_rate
 
     qqp = quantize(condense_double_integrator(T=50))
     mesh = make_mesh(dp={dp}, tp={tp})   # spans all processes
@@ -65,7 +64,7 @@ WORKER = textwrap.dedent(
     # sharded checkpoint across processes: each host writes ONLY its
     # addressable shards, then reloads onto the same mesh bit-exactly
     from jax.experimental import multihost_utils
-    from pint_tpu.utils.checkpoint import save_sharded, load_sharded, load_full
+    from pint_jax.utils.checkpoint import save_sharded, load_sharded, load_full
 
     prefix = r"{ckpt_prefix}"
     path = save_sharded(prefix, words)
@@ -83,17 +82,14 @@ WORKER = textwrap.dedent(
     for s in words.addressable_shards:
         assert (full[s.index] == np.asarray(s.data)).all()
 
-    # device-resident SQP across the process-spanning mesh, with the
-    # round-4 kernels forced on (interpret mode on CPU): lipq
-    # condensation + the per-iteration matvec column inner run under
-    # REAL cross-process psums, and every addressable shard must match
-    # the single-device solve bit for bit
-    from pint_tpu.mpc import DeviceSQP
+    # device-resident SQP across the process-spanning mesh: the column
+    # inner runs under REAL cross-process psums, and every addressable
+    # shard must match the single-device solve bit for bit
+    from pint_jax.mpc import DeviceSQP
 
     dsqp = DeviceSQP(
         horizon=8, sqp_iters=2, pgd_iters=6,
         x_ref=np.array([1.0, 0.0, 0.0]),
-        fused=True, fused_block=8, lipq=True, lipq_block=8,
     )
     sb = 8
     rng2 = np.random.default_rng(7)

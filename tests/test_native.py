@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from pint_tpu import PackedLayout
-from pint_tpu.native import BINOP_NAMES, SHIFT_NAMES, NativeOps, native_available
-from pint_tpu.utils import Oracle
+from pint_jax import PackedLayout
+from pint_jax.native import BINOP_NAMES, SHIFT_NAMES, NativeOps, native_available
+from pint_jax.utils import Oracle
 
 pytestmark = pytest.mark.skipif(
     not native_available(), reason="native toolchain unavailable"
@@ -140,7 +140,7 @@ def test_native_pack_unpack_all_widths(layout):
 def test_native_matches_jnp_path():
     import jax.numpy as jnp
 
-    from pint_tpu.ops import word as W
+    from pint_jax.ops import word as W
 
     layout = PackedLayout(1, 2, 3, 4, 5, 6, 11)
     native = NativeOps(layout)

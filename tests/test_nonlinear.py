@@ -5,15 +5,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pint_tpu.models import Unicycle
-from pint_tpu.models.dynamics import unpack_controls
-from pint_tpu.mpc.costs import (
+from pint_jax.models import Unicycle
+from pint_jax.models.dynamics import unpack_controls
+from pint_jax.mpc.costs import (
     combine,
     control_effort_cost,
     goal_cost,
     obstacle_cost,
 )
-from pint_tpu.mpc.nonlinear import QuantizedNonlinearPGD
+from pint_jax.mpc.nonlinear import QuantizedNonlinearPGD
 
 
 @pytest.fixture(scope="module")
@@ -54,7 +54,7 @@ def test_nonlinear_pgd_reaches_goal(model):
 def test_nonlinear_pgd_beats_mppi_on_smooth_goal(model):
     """On a smooth cost the gradient planner should land at least as close
     as the sampling planner under a comparable budget."""
-    from pint_tpu.mpc.mppi import QuantizedMPPI
+    from pint_jax.mpc.mppi import QuantizedMPPI
 
     goal = jnp.asarray([[1.4, -0.6]])
     cost_fn = goal_cost(model, goal)

@@ -13,8 +13,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import pint_tpu as pt
-from pint_tpu import PackedArray, PackedLayout
+import pint_jax as pt
+from pint_jax import PackedArray, PackedLayout
 
 
 def P(lay, *vals):
@@ -365,7 +365,7 @@ def test_readme_saturate_examples():
     assert_packed_eq(P(lay, 31, 63, 30), pt.add_unsigned_saturate(a, b))
 
 
-# -- batched / vmapped semantics (TPU-native addition) ----------------------
+# -- batched / vmapped semantics (array-native addition) --------------------
 
 
 def test_batched_ops_match_scalar():

@@ -9,8 +9,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from pint_tpu.models import DoubleIntegrator, Unicycle
-from pint_tpu.mpc import FixedPointPGD, condense_double_integrator, quantize
+from pint_jax.models import DoubleIntegrator, Unicycle
+from pint_jax.mpc import FixedPointPGD, condense_double_integrator, quantize
 
 
 def test_solver_accumulator_bound_at_extremes():
@@ -27,7 +27,7 @@ def test_solver_accumulator_bound_at_extremes():
     g = jnp.full((batch, qqp.padded), 2**31 - 1, jnp.int32)
     out = jax.jit(solver.solve_words)(solver.init_words(batch), g)
     # all lanes driven to the box floor, never past it
-    from pint_tpu.models.dynamics import unpack_controls
+    from pint_jax.models.dynamics import unpack_controls
 
     l = np.asarray(unpack_controls(out))
     assert l.min() >= -127 and l.max() <= 127
@@ -56,7 +56,7 @@ def test_double_integrator_extreme_states_no_trap():
 
 def test_unicycle_trig_bounds():
     """Q14 trig stays within [-2^14, 2^14] for every Q16 angle."""
-    from pint_tpu.models.dynamics import _sin_turns_q14
+    from pint_jax.models.dynamics import _sin_turns_q14
 
     theta = jnp.arange(-(1 << 17), 1 << 17, 97, dtype=jnp.int32)
     s = np.asarray(_sin_turns_q14(theta))
@@ -79,7 +79,7 @@ def test_unicycle_product_bound():
 def test_quantize_rejects_degenerate_scale():
     import pytest
 
-    from pint_tpu.mpc.condensed import CondensedQP, quantize as q
+    from pint_jax.mpc.condensed import CondensedQP, quantize as q
 
     tiny = CondensedQP(
         H=np.eye(4) * 1e-30,

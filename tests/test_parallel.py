@@ -10,9 +10,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pint_tpu.models.dynamics import unpack_controls
-from pint_tpu.mpc import FixedPointPGD, condense_double_integrator, quantize
-from pint_tpu.parallel import ShardedPGD, make_mesh
+from pint_jax.models.dynamics import unpack_controls
+from pint_jax.mpc import FixedPointPGD, condense_double_integrator, quantize
+from pint_jax.parallel import ShardedPGD, make_mesh
 
 
 @pytest.fixture(scope="module")
@@ -49,7 +49,7 @@ def test_sharded_matches_single_device(qqp, dp, tp):
 
 @pytest.mark.parametrize("dp,tp", [(4, 2), (2, 4)])
 def test_sharded_momentum_matches_accelerated(qqp, dp, tp):
-    from pint_tpu.mpc.accelerated import AcceleratedPGD
+    from pint_jax.mpc.accelerated import AcceleratedPGD
 
     iters = 15
     mesh = make_mesh(dp=dp, tp=tp)
@@ -104,7 +104,7 @@ def test_batch_sharding_layout(qqp):
 
 @pytest.fixture(scope="module")
 def qcqp():
-    from pint_tpu.mpc.constrained import constrain_states, quantize_constrained
+    from pint_jax.mpc.constrained import constrain_states, quantize_constrained
 
     T, dt = 48, 1.0 / 32.0
     qp = condense_double_integrator(T=T, dt=dt, q_pos=4.0)
@@ -127,8 +127,8 @@ def test_sharded_constrained_matches_single_device(qcqp, dp, tp):
     """The dp x tp ALM solve is bit-identical to ConstrainedPGD: both
     int32 psums (gradient + constraint evaluation) are exact, and the
     tp-replicated multiplier plane stays in lockstep."""
-    from pint_tpu.mpc.constrained import ConstrainedPGD
-    from pint_tpu.parallel import ShardedConstrainedPGD
+    from pint_jax.mpc.constrained import ConstrainedPGD
+    from pint_jax.parallel import ShardedConstrainedPGD
 
     outer, inners = 6, 20
     mesh = make_mesh(dp=dp, tp=tp)
@@ -150,8 +150,8 @@ def test_sharded_constrained_warm_multipliers(qcqp):
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from pint_tpu.mpc.constrained import ConstrainedPGD
-    from pint_tpu.parallel import ShardedConstrainedPGD
+    from pint_jax.mpc.constrained import ConstrainedPGD
+    from pint_jax.parallel import ShardedConstrainedPGD
 
     mesh = make_mesh(dp=2, tp=4)
     sharded = ShardedConstrainedPGD(qcqp, mesh, outer=3, inners=10)
@@ -183,8 +183,8 @@ def test_sharded_constrained_warm_multipliers(qcqp):
 def test_sharded_constrained_rejects_bad_tp():
     """A padded horizon that doesn't split into 4-lane words per tp rank is
     rejected at construction."""
-    from pint_tpu.mpc.constrained import constrain_states, quantize_constrained
-    from pint_tpu.parallel import ShardedConstrainedPGD
+    from pint_jax.mpc.constrained import constrain_states, quantize_constrained
+    from pint_jax.parallel import ShardedConstrainedPGD
 
     T, dt = 12, 1.0 / 32.0
     qp = condense_double_integrator(T=T, dt=dt)

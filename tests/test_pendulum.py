@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pint_tpu.models import Pendulum, pack_controls
-from pint_tpu.mpc import QuantizedSQP
+from pint_jax.models import Pendulum, pack_controls
+from pint_jax.mpc import QuantizedSQP
 
 
 @pytest.fixture(scope="module")
@@ -150,7 +150,7 @@ def test_rti_regulation_short_horizon(strong_model):
     """Short-horizon RTI regulates near-upright starts to ~zero.  The
     horizon must be short: condensing an exponentially unstable plant
     conditions like e^(2*lambda*T), which defeats fixed-iteration PGD."""
-    from pint_tpu.mpc import SQPController
+    from pint_jax.mpc import SQPController
 
     m = strong_model
     sqp = QuantizedSQP(
@@ -171,7 +171,7 @@ def test_plan_then_track_swingup(strong_model):
     """The full quantized pipeline: long-horizon SQP plans the swing-up
     offline; a short-horizon RTI tracker follows the planned state
     trajectory through the fixed-point plant and balances upright."""
-    from pint_tpu.mpc import SQPController
+    from pint_jax.mpc import SQPController
 
     m = strong_model
     planner = QuantizedSQP(
@@ -199,7 +199,7 @@ def test_plan_then_track_swingup(strong_model):
 
 
 def test_tracking_ref_length_validated(strong_model):
-    from pint_tpu.mpc import SQPController
+    from pint_jax.mpc import SQPController
 
     sqp = QuantizedSQP(
         model=strong_model, horizon=16, Q=np.diag([1.0, 0.3]),

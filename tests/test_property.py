@@ -3,16 +3,16 @@
 The reference relies on hand-picked boundary cases; here random whole-word
 inputs sweep lane widths 1..11 (and mixed), all four word sizes, and all
 three saturation-mask strategies, checking bit-exact agreement with the
-independent numpy per-lane implementation (pint_tpu.utils.oracle).
+independent numpy per-lane implementation (pint_jax.utils.oracle).
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pint_tpu import PackedArray, PackedLayout
-from pint_tpu.ops import word as W
-from pint_tpu.utils import Oracle
+from pint_jax import PackedArray, PackedLayout
+from pint_jax.ops import word as W
+from pint_jax.utils import Oracle
 
 LAYOUTS = [
     PackedLayout(1),

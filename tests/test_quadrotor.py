@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pint_tpu.models.quadrotor import PlanarQuadrotor
-from pint_tpu.mpc import FixedPointPGD, condense_lti, quantize
+from pint_jax.models.quadrotor import PlanarQuadrotor
+from pint_jax.mpc import FixedPointPGD, condense_lti, quantize
 
 
 @pytest.fixture(scope="module")
@@ -61,7 +61,7 @@ def test_hover_mpc_closed_loop(model):
     assert qqp.u_scale == pytest.approx(u_max / 127)
     solver = FixedPointPGD(qqp, iters=25, error_feedback=True)
 
-    from pint_tpu.mpc.controller import LTIController
+    from pint_jax.mpc.controller import LTIController
 
     controller = LTIController(
         qqp,

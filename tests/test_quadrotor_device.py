@@ -12,8 +12,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pint_tpu.models.quadrotor import PlanarQuadrotor
-from pint_tpu.mpc import DeviceSQP, QuantizedSQP
+from pint_jax.models.quadrotor import PlanarQuadrotor
+from pint_jax.mpc import DeviceSQP, QuantizedSQP
 
 KW = dict(
     model=PlanarQuadrotor(), horizon=16, sqp_iters=4, pgd_iters=30,
@@ -87,7 +87,7 @@ def test_allpairs_agrees_at_n6(x0):
                     d_sc._condense_hg(x, lanes)):
         a, b = np.asarray(a), np.asarray(b)
         assert np.abs(a - b).max() <= 1e-4 * (np.abs(b).max() + 1e-12)
-    from pint_tpu.models.dynamics import unpack_controls
+    from pint_jax.models.dynamics import unpack_controls
 
     w_ap = d_ap.solve_words(d_ap.init_words(B), x)
     w_sc = d_sc.solve_words(d_sc.init_words(B), x)
@@ -100,7 +100,7 @@ def test_device_constrained_corridor(x0):
     """DeviceConstrainedSQP on the 6-state model: a vertical-velocity
     corridor (directly actuated by total thrust) that genuinely binds is
     held on the true nonlinear rollout, deterministically."""
-    from pint_tpu.mpc import DeviceConstrainedSQP
+    from pint_jax.mpc import DeviceConstrainedSQP
 
     dev = DeviceSQP(**KW)
     # |vy| corridor tighter than the unconstrained plan's swing
@@ -109,7 +109,7 @@ def test_device_constrained_corridor(x0):
                                 rho=50.0, alm_outer=3)
     B = x0.shape[0]
     w_u = dev.solve_words(dev.init_words(B), np.asarray(x0, np.float32))
-    from pint_tpu.models.dynamics import unpack_controls
+    from pint_jax.models.dynamics import unpack_controls
 
     def lanes_of(w):
         l = (np.asarray(unpack_controls(w), np.int64) + 128) % 256 - 128
@@ -138,7 +138,7 @@ def test_sharded_bit_identical(pair, dp, tp):
     other family: Tm = 32 lanes over 8 words/problem)."""
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from pint_tpu.parallel import make_mesh
+    from pint_jax.parallel import make_mesh
 
     _, dev = pair
     B = 8

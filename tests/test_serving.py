@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from pint_tpu.mpc import condense_double_integrator, quantize
-from pint_tpu.serving import MPCService
+from pint_jax.mpc import condense_double_integrator, quantize
+from pint_jax.serving import MPCService
 
 
 @pytest.fixture(scope="module")
@@ -47,9 +47,9 @@ def test_service_heals_bad_rows(service):
 
 @pytest.fixture(scope="module")
 def rti_service():
-    from pint_tpu.models import Pendulum
-    from pint_tpu.mpc import DeviceSQP, dare_terminal
-    from pint_tpu.serving import RTIService
+    from pint_jax.models import Pendulum
+    from pint_jax.mpc import DeviceSQP, dare_terminal
+    from pint_jax.serving import RTIService
 
     m = Pendulum(u_shift=10)
     A, B = m.linearize(np.zeros(2), np.zeros(1))
@@ -108,8 +108,8 @@ def test_rti_service_batch_mismatch(rti_service):
 
 @pytest.fixture(scope="module")
 def constrained_rti_service():
-    from pint_tpu.mpc import DeviceConstrainedSQP, DeviceSQP
-    from pint_tpu.serving import ConstrainedRTIService
+    from pint_jax.mpc import DeviceConstrainedSQP, DeviceSQP
+    from pint_jax.serving import ConstrainedRTIService
 
     csqp = DeviceConstrainedSQP(
         DeviceSQP(
@@ -178,8 +178,8 @@ def test_mpc_service_device_g_matches_host_g():
     validation/self-heal behavior."""
     import jax.numpy as jnp
 
-    from pint_tpu.mpc import condense_double_integrator, quantize
-    from pint_tpu.serving import MPCService
+    from pint_jax.mpc import condense_double_integrator, quantize
+    from pint_jax.serving import MPCService
 
     qqp = quantize(condense_double_integrator(T=12))
     B = 16
@@ -211,7 +211,7 @@ def test_deadline_miss_counter():
     """A tick over the configured budget increments
     ``stats.deadline_misses`` (SLO violation), while the response is
     still returned; a generous budget never misses."""
-    from pint_tpu.mpc import condense_double_integrator, quantize
+    from pint_jax.mpc import condense_double_integrator, quantize
 
     qqp = quantize(condense_double_integrator(T=32))
     # zero budget: every (finite-latency) tick is a forced miss
@@ -240,7 +240,7 @@ def test_default_budgets_defined():
     """Every endpoint ships a defined real-time budget (BASELINE.json
     north-star: controls must match the reference under the same horizon
     AND real-time budget)."""
-    from pint_tpu.serving import (
+    from pint_jax.serving import (
         CRTI_BUDGET_S, LTI_BUDGET_S, RTI_BUDGET_S,
     )
 
@@ -250,9 +250,9 @@ def test_default_budgets_defined():
 
 
 def test_rti_deadline_miss_counter():
-    from pint_tpu.models import Pendulum
-    from pint_tpu.mpc import DeviceSQP
-    from pint_tpu.serving import RTIService
+    from pint_jax.models import Pendulum
+    from pint_jax.mpc import DeviceSQP
+    from pint_jax.serving import RTIService
 
     m = Pendulum(u_shift=10)
     sqp = DeviceSQP(model=m, horizon=8, sqp_iters=1, pgd_iters=6,

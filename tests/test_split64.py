@@ -13,10 +13,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pint_tpu import PackedLayout
-from pint_tpu.ops import pallas as P
-from pint_tpu.ops import split64 as S
-from pint_tpu.ops import word as W
+from pint_jax import PackedLayout
+from pint_jax.ops import elementwise as P
+from pint_jax.ops import split64 as S
+from pint_jax.ops import word as W
 
 M64 = (1 << 64) - 1
 
@@ -109,10 +109,9 @@ def _to_pair_np(w):
 
 @pytest.mark.parametrize("layout", LAYOUTS, ids=str)
 @pytest.mark.parametrize("opname", P.BINOP_NAMES)
-def test_pallas_split_binop_parity(layout, opname):
-    """The actual Pallas split kernel -- via the pair-word entry, the only
-    route that runs it (P.binop dispatches u64 to the jnp path) -- vs the
-    jnp u64 formulas, every op x every layout."""
+def test_split_binop_parity(layout, opname):
+    """The pair-word entry vs the jnp u64 formulas, every op x every
+    layout."""
     a = _rand_u64(layout, 1000, 4)
     b = _rand_u64(layout, 1000, 5)
     expected = _to_pair_np(getattr(W, opname)(layout, a, b))
@@ -126,7 +125,7 @@ def test_pallas_split_binop_parity(layout, opname):
 
 @pytest.mark.parametrize("opname", P.SHIFT_NAMES)
 @pytest.mark.parametrize("amount", [0, 3, 32, 40, 64, 100])
-def test_pallas_split_shift_parity(opname, amount):
+def test_split_shift_parity(opname, amount):
     layout = PackedLayout(20, 20, 24)
     v = _rand_u64(layout, 777, 6)
     expected = _to_pair_np(getattr(W, opname)(layout, v, amount))
@@ -138,8 +137,7 @@ def test_pallas_split_shift_parity(opname, amount):
 
 @pytest.mark.parametrize("opname", ["add_unsigned_saturate", "shift_left"])
 def test_u64_dispatch_is_jnp_path(opname):
-    """P.binop/P.shift on u64 layouts return the jnp/XLA path (fastest
-    measured -- see BENCH_sweep u64_family) and agree with the formulas."""
+    """P.binop/P.shift on uint64 words agree with the formulas."""
     layout = PackedLayout(*([8] * 8))
     a = _rand_u64(layout, 256, 30)
     b = _rand_u64(layout, 256, 31)
@@ -153,7 +151,7 @@ def test_u64_dispatch_is_jnp_path(opname):
 
 
 @pytest.mark.parametrize("signed", [False, True])
-def test_pallas_split_saturating_accumulate(signed):
+def test_split_saturating_accumulate(signed):
     layout = PackedLayout(*([8] * 8))
     steps = 3
     acc = _rand_u64(layout, 400, 7)
@@ -169,9 +167,9 @@ def test_pallas_split_saturating_accumulate(signed):
 
 
 @pytest.mark.parametrize("opname", ["add_signed_saturate", "min_unsigned"])
-def test_pallas_pair_api(opname):
-    """The x64-free pair-word entry (the TPU production path) matches the
-    u64-array path bit-exactly."""
+def test_pair_api(opname):
+    """The x64-free pair-word entry matches the u64-array path
+    bit-exactly."""
     layout = PackedLayout(20, 20, 24)
     a = _rand_u64(layout, 500, 20)
     b = _rand_u64(layout, 500, 21)
@@ -184,7 +182,7 @@ def test_pallas_pair_api(opname):
     np.testing.assert_array_equal(_to_pair_np(expected), got_pair)
 
 
-def test_pallas_pair_shift():
+def test_pair_shift():
     layout = PackedLayout(*([8] * 8))
     v = _rand_u64(layout, 300, 22)
     for amount in (0, 9, 33, 64):
@@ -197,7 +195,7 @@ def test_pallas_pair_shift():
         np.testing.assert_array_equal(_to_pair_np(expected), got)
 
 
-def test_pallas_split_2d_shapes():
+def test_split_2d_shapes():
     layout = PackedLayout(7, 7, 9, 9, 11, 12)
     a = _rand_u64(layout, 31 * 41, 10).reshape(31, 41)
     b = _rand_u64(layout, 31 * 41, 11).reshape(31, 41)

@@ -10,8 +10,8 @@ linearization."""
 import numpy as np
 import pytest
 
-from pint_tpu.mpc.ltv import QuantizedSQP
-from pint_tpu.mpc.sqp_constrained import ConstrainedSQP
+from pint_jax.mpc.ltv import QuantizedSQP
+from pint_jax.mpc.sqp_constrained import ConstrainedSQP
 
 X0 = np.array([[0.0, 0.0, np.pi / 2], [0.0, 0.0, -np.pi / 2]])
 

@@ -6,9 +6,9 @@ import numpy as np
 import pytest
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from pint_tpu import PackedArray, PackedLayout
-from pint_tpu.parallel import make_mesh
-from pint_tpu.utils.checkpoint import (
+from pint_jax import PackedArray, PackedLayout
+from pint_jax.parallel import make_mesh
+from pint_jax.utils.checkpoint import (
     load_full,
     load_packed,
     load_sharded,
@@ -17,8 +17,8 @@ from pint_tpu.utils.checkpoint import (
     save_sharded,
     save_solver_state,
 )
-from pint_tpu.utils.profiling import op_word_costs, roofline_report
-from pint_tpu.utils.timing import fetch_overhead, time_chained
+from pint_jax.utils.profiling import op_word_costs, roofline_report
+from pint_jax.utils.timing import time_chained
 
 
 def test_packed_checkpoint_roundtrip(tmp_path):
@@ -114,11 +114,11 @@ def test_roofline_report():
         lay,
         {"add_wrap": 50e9, "add_unsigned_saturate": 40e9, "shift_left": 60e9},
         mem_bytes_per_s=819e9,
-        vpu_ops_per_s=4e12,
+        alu_ops_per_s=4e12,
     )
     for op, row in rep.items():
         assert 0 < row["efficiency"] < 2
-        assert row["bound"] in ("mem", "vpu")
+        assert row["bound"] in ("mem", "alu")
     # shifts stream 2 words, binops 3: the shift memory bound is 1.5x higher
     assert rep["shift_left"]["speed_of_light_Gwords_per_s"] > rep[
         "add_wrap"
@@ -129,5 +129,40 @@ def test_time_chained_measures_order_of_magnitude():
     # on CPU the absolute numbers are meaningless; just verify the utility
     # runs, chains, and returns a positive sane duration
     x = jnp.arange(1 << 16, dtype=jnp.uint32)
-    sec = time_chained(lambda v: v + 1, x, inner=8, reps=2, overhead=0.0)
+    stats = []
+    sec = time_chained(lambda v: v + 1, x, inner=8, reps=2, stats_out=stats)
     assert 0 < sec < 1.0
+    lo, med, hi = stats[0]
+    assert 0 < lo <= med <= hi
+
+
+def test_compile_cache_respects_env(monkeypatch):
+    """With JAX_COMPILATION_CACHE_DIR set, the helper sets nothing."""
+    from pint_jax.utils import compile_cache
+
+    calls = []
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", "/elsewhere/cache")
+    monkeypatch.setattr(
+        jax.config, "update", lambda *a: calls.append(a)
+    )
+    assert compile_cache.enable_compile_cache() == "/elsewhere/cache"
+    assert calls == []
+
+
+def test_compile_cache_defaults_to_checkout(monkeypatch):
+    """Without the variable, the cache is <checkout>/.jax_cache, found
+    from the module's own location whatever the working directory."""
+    import pathlib
+
+    from pint_jax.utils import compile_cache
+
+    calls = []
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    monkeypatch.setattr(
+        jax.config, "update", lambda *a: calls.append(a)
+    )
+    monkeypatch.chdir("/")
+    checkout = pathlib.Path(__file__).resolve().parents[1]
+    expected = str(checkout / ".jax_cache")
+    assert compile_cache.enable_compile_cache() == expected
+    assert calls == [("jax_compilation_cache_dir", expected)]

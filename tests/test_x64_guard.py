@@ -11,8 +11,8 @@ def test_u64_without_x64_raises():
         "import jax\n"
         "jax.config.update('jax_platforms', 'cpu')\n"
         "import jax.numpy as jnp\n"
-        "from pint_tpu import PackedLayout\n"
-        "from pint_tpu.ops import word as W\n"
+        "from pint_jax import PackedLayout\n"
+        "from pint_jax.ops import word as W\n"
         "lay = PackedLayout(*([8]*8))\n"
         "try:\n"
         "    W.pack(lay, *[jnp.asarray(i) for i in range(8)])\n"
